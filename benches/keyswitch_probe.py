@@ -1,6 +1,5 @@
-"""Probe: identity key-switch variants (the one hot-path kernel far from
-speed-of-light: BENCH.md lists ~35 ms/batch at B=8192 vs a 2.6 ms MXU
-floor for the B x 24576 x 2544 int8 contraction).
+"""Probe: identity key-switch variants (the B x 24576 x 2544 int8
+contraction after every blind rotation).
 
 Variants (all exact; asserted vs the production path before timing):
   current     decompose + fused onehot-in-dot (MatmulEngine.key_switch_digits)
@@ -10,7 +9,7 @@ Variants (all exact; asserted vs the production path before timing):
   chunked4    contraction split into 4 row chunks (XLA pipelining shape)
   bf16        one-hot dot in bf16/f32-acc (exact: |sum| <= 8192*2^7 < 2^24)
 
-Timing is CHAINED (output feeds the next input) to defeat relay caching.
+Timing is CHAINED (output feeds the next input), so no call can be skipped.
 Usage: python benches/keyswitch_probe.py [B]
 """
 
@@ -23,11 +22,11 @@ import numpy as np
 
 sys.path.insert(0, ".")
 
-from rustfhe_tpu import keys, tlwe  # noqa: E402
-from rustfhe_tpu.bootstrap import identity_key_switch  # noqa: E402
-from rustfhe_tpu.decomp import decompose_unsigned  # noqa: E402
-from rustfhe_tpu.engine import get_engine  # noqa: E402
-from rustfhe_tpu.params import DEFAULT_PARAMS as P  # noqa: E402
+from rustfhe import keys, tlwe  # noqa: E402
+from rustfhe.bootstrap import identity_key_switch  # noqa: E402
+from rustfhe.decomp import decompose_unsigned  # noqa: E402
+from rustfhe.engine import get_engine  # noqa: E402
+from rustfhe.params import DEFAULT_PARAMS as P  # noqa: E402
 
 I8, I32, U32 = jnp.int8, jnp.int32, jnp.uint32
 B = int(sys.argv[1]) if len(sys.argv) > 1 else 8192

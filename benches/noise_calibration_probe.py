@@ -14,7 +14,7 @@ term 2*l*N*(Bg/2)^2*alpha_lv1^2, the component the FAST anchor never
 exercised.  Results are recorded in utils/noise.py's docstring and pinned
 by tests/test_noise.py.
 
-Usage: python benches/noise_calibration_probe.py [B]   (TPU; ~1 min/preset)
+Usage: python benches/noise_calibration_probe.py [B]   (on the card)
 """
 
 import math
@@ -27,10 +27,10 @@ import numpy as np
 
 sys.path.insert(0, ".")
 
-from rustfhe_tpu import gates, keys, tlwe  # noqa: E402
-from rustfhe_tpu.engine import select_fast_engine  # noqa: E402
-from rustfhe_tpu.params import DEFAULT_PARAMS  # noqa: E402
-from rustfhe_tpu.utils.noise import noise_budget  # noqa: E402
+from rustfhe import gates, keys, tlwe  # noqa: E402
+from rustfhe.engine import select_fast_engine  # noqa: E402
+from rustfhe.params import DEFAULT_PARAMS  # noqa: E402
+from rustfhe.utils.noise import noise_budget  # noqa: E402
 
 U32 = jnp.uint32
 B = int(sys.argv[1]) if len(sys.argv) > 1 else 131072

@@ -2,7 +2,7 @@
 level-fused evaluator: FheUint compares and the legacy comparator cell.
 
 Runs on CPU (the bucketed evaluator path, where lane counts translate
-directly to bootstrap work; the TPU interactive path pads levels to
+directly to bootstrap work; the interactive path pads levels to
 ``ctx.circuit_fixed_width``, so its win there is the removed NOT LEVELS,
 not lanes).  The "off" arm monkeypatches ``circuits.optimize`` to the
 identity and routes ``lower_folded`` through plain ``lower`` so the
@@ -24,15 +24,15 @@ jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from rustfhe_tpu.apps import circuits as C  # noqa: E402
-from rustfhe_tpu.context import TFHE  # noqa: E402
-from rustfhe_tpu.params import TEST_PARAMS  # noqa: E402
+from rustfhe.apps import circuits as C  # noqa: E402
+from rustfhe.context import TFHE  # noqa: E402
+from rustfhe.params import TEST_PARAMS  # noqa: E402
 
 
 def lower_unfolded(circuit):
     """Pre-round-5 lowering shim: plain ``lower`` dressed in the
     ``lower_folded`` return contract (NOT gates stay bootstrap lanes)."""
-    from rustfhe_tpu.gates import PRE_COEFFS
+    from rustfhe.gates import PRE_COEFFS
 
     ops, in_a, in_b, out_w, n_wires = C.lower(circuit)
     coeff = (np.array([PRE_COEFFS[o] for o in ops], np.int64).reshape(-1, 3)

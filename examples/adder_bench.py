@@ -15,10 +15,10 @@ import numpy as np
 
 sys.path.insert(0, ".")
 
-from rustfhe_tpu.apps.circuits import evaluate_plain, ripple_carry_adder  # noqa: E402
-from rustfhe_tpu.apps.circuits import evaluate_encrypted  # noqa: E402
-from rustfhe_tpu.context import TFHE  # noqa: E402
-from rustfhe_tpu.params import DEFAULT_PARAMS  # noqa: E402
+from rustfhe.apps.circuits import evaluate_plain, ripple_carry_adder  # noqa: E402
+from rustfhe.apps.circuits import evaluate_encrypted  # noqa: E402
+from rustfhe.context import TFHE  # noqa: E402
+from rustfhe.params import DEFAULT_PARAMS  # noqa: E402
 
 U32 = jnp.uint32
 
@@ -32,15 +32,10 @@ def main():
     print(f"{bits}-bit adder: {n_gates} gates, depth {circuit.depth}", flush=True)
 
     t0 = time.perf_counter()
-    # engine_name=None auto-selects the fastest exact engine.  Latency mode
-    # (prebuilt panel tables) wins for small fused level batches but caps
-    # the bootstrap batch at 16384 (BENCH.md) — each level fuses up to
-    # max-same-op-gates-per-level x batch ciphertexts, so gate it.
-    latency = batch * 4 <= 16384  # widest same-op adder level bucket is <4
-    ctx = TFHE.new(jax.random.PRNGKey(0), DEFAULT_PARAMS, None,
-                   latency_mode=latency)
+    # engine_name=None auto-selects the fastest exact engine.
+    ctx = TFHE.new(jax.random.PRNGKey(0), DEFAULT_PARAMS, None)
     print(f"keygen: {time.perf_counter() - t0:.1f}s "
-          f"(engine {ctx.engine_name}, latency_mode={latency})", flush=True)
+          f"(engine {ctx.engine_name})", flush=True)
 
     rs = np.random.RandomState(0)
     a = rs.randint(0, 1 << bits, size=batch)

@@ -14,8 +14,9 @@ no serialization) does not have:
     upload and computes gates over both parties' ciphertexts.
   * Alice decrypts the result.
 
-Every step is asserted.  Runs on CPU by default (set RUSTFHE_FORCE_TPU=1
-to let jax pick the accelerator).  Usage: python examples/client_server.py
+Every step is asserted.  Runs wherever JAX's default device is
+(``JAX_PLATFORMS=cpu`` keeps it on the CPU).  Usage:
+python examples/client_server.py
 """
 
 import os
@@ -23,15 +24,11 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-import jax
-
-if not os.environ.get("RUSTFHE_FORCE_TPU"):
-    jax.config.update("jax_platforms", "cpu")
-
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-import rustfhe_tpu as rf  # noqa: E402
+import rustfhe as rf  # noqa: E402
 
 
 def main():

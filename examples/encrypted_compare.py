@@ -16,14 +16,14 @@ import numpy as np
 
 sys.path.insert(0, ".")
 
-from rustfhe_tpu.apps.circuits import (  # noqa: E402
+from rustfhe.apps.circuits import (  # noqa: E402
     comparator,
     evaluate_encrypted,
     evaluate_plain,
     ripple_borrow_subtractor,
 )
-from rustfhe_tpu.context import TFHE  # noqa: E402
-from rustfhe_tpu.params import DEFAULT_PARAMS, TEST_PARAMS  # noqa: E402
+from rustfhe.context import TFHE  # noqa: E402
+from rustfhe.params import DEFAULT_PARAMS, TEST_PARAMS  # noqa: E402
 
 U32 = jnp.uint32
 

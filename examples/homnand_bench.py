@@ -1,6 +1,6 @@
 """Gate check harness: keygen + truth-table check of all gates with
 per-gate timing — the analogue of the reference's ``homnand-bench`` example
-(``hom_nand/examples/homnand-bench.rs``), batched the TPU way: each gate's
+(``hom_nand/examples/homnand-bench.rs``), batched: each gate's
 whole truth table is one batched call.
 
 Usage: python examples/homnand_bench.py [batch]
@@ -15,9 +15,9 @@ import numpy as np
 
 sys.path.insert(0, ".")
 
-from rustfhe_tpu import gates, keys, tlwe  # noqa: E402
-from rustfhe_tpu.engine import select_fast_engine  # noqa: E402
-from rustfhe_tpu.params import DEFAULT_PARAMS as P  # noqa: E402
+from rustfhe import gates, keys, tlwe  # noqa: E402
+from rustfhe.engine import select_fast_engine  # noqa: E402
+from rustfhe.params import DEFAULT_PARAMS as P  # noqa: E402
 
 U32 = jnp.uint32
 
@@ -32,8 +32,7 @@ TRUTH = {
 def main():
     reps = int(sys.argv[1]) if len(sys.argv) > 1 else 1
 
-    # fastest exact engine for the device (the fused Pallas kernel on
-    # TPU; the XLA matmul engine is ~4-16x slower per batch)
+    # fastest exact engine for the device (engine.select_fast_engine)
     engine_name = select_fast_engine(P)
     print(f"engine: {engine_name}", flush=True)
     print("generating keys...", flush=True)

@@ -1,7 +1,7 @@
 """Programmable bootstrapping demo: homomorphic lookup-table evaluation.
 
 Evaluates arbitrary functions f: Z_space -> Z_space on encrypted integers
-with ONE bootstrap each (rustfhe_tpu.pbs) — a capability the reference does
+with ONE bootstrap each (rustfhe.pbs) — a capability the reference does
 not have, running on the same fused blind-rotate kernels as the gates:
 
   * a fixed demo function (squaring mod space),
@@ -26,15 +26,15 @@ import numpy as np
 
 sys.path.insert(0, ".")
 
-from rustfhe_tpu import pbs  # noqa: E402
-from rustfhe_tpu.context import TFHE  # noqa: E402
-from rustfhe_tpu.params import DEFAULT_PARAMS, TEST_PARAMS  # noqa: E402
+from rustfhe import pbs  # noqa: E402
+from rustfhe.context import TFHE  # noqa: E402
+from rustfhe.params import DEFAULT_PARAMS, TEST_PARAMS  # noqa: E402
 
 U32 = jnp.uint32
 
 
 def main():
-    from rustfhe_tpu.utils.cache import enable_compilation_cache
+    from rustfhe.utils.cache import enable_compilation_cache
 
     enable_compilation_cache()
     ap = argparse.ArgumentParser()
@@ -57,15 +57,15 @@ def main():
     print(f"# device: {dev.platform} {dev.device_kind}")
     t0 = time.perf_counter()
     # KEYFILE: on-disk raw-key cache (utils.serialization.cached_keys) —
-    # keygen + its relay compiles run once per machine; later runs load in
-    # seconds.  KEYFILE="" disables.
+    # keygen runs once per machine; later runs load in seconds.
+    # KEYFILE="" disables.
     # Default key cache under the user's home (NOT a predictable
     # world-writable /tmp name: the cache holds the SECRET key, and a
     # pre-planted file at a shared path would silently supply an
     # attacker-known key).  KEYFILE="" disables caching.
     keyfile = os.environ.get(
         "KEYFILE",
-        os.path.expanduser(f"~/.cache/rustfhe_tpu/keys_{p.N}_{p.n}"))
+        os.path.expanduser(f"~/.cache/rustfhe/keys_{p.N}_{p.n}"))
     ctx = TFHE.new(jax.random.PRNGKey(0), p, engine_name=None,
                    keyfile=keyfile or None)
     print(f"# keygen ({ctx.engine_name}): {time.perf_counter() - t0:.1f}s")

@@ -44,9 +44,9 @@ def main():
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
 
-    from rustfhe_tpu import tlwe
-    from rustfhe_tpu.params import DEFAULT_PARAMS, TEST_PARAMS
-    from rustfhe_tpu.parallel import multihost
+    from rustfhe import tlwe
+    from rustfhe.params import DEFAULT_PARAMS, TEST_PARAMS
+    from rustfhe.parallel import multihost
 
     params = TEST_PARAMS if args.test_params else DEFAULT_PARAMS
 

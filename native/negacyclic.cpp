@@ -1,8 +1,8 @@
-// Host-side native kernels for rustfhe_tpu.
+// Host-side native kernels for rustfhe.
 //
 // The reference keeps its hot negacyclic multiplication in native code (the
-// vendored spqlios f64 FFT: /root/reference/utils/src/spqlios/*).  On TPU
-// that role is played by the MXU matmul engines; this native library is the
+// vendored spqlios f64 FFT: utils/src/spqlios/* of the reference).  On the
+// device that role is played by the JAX engines; this native library is the
 // *host-side* counterpart, written from scratch:
 //   * an exact O(N^2) uint32 negacyclic convolution (independent oracle used
 //     to cross-check the JAX oracles from outside the JAX stack),

@@ -1,7 +1,6 @@
 """Smoke test of the driver-facing bench harness (bench.py).
 
-The driver runs ``python bench.py`` on real TPU hardware at the end of
-every round; a harness regression (segment layout, MUX second pass, adder
+``python bench.py`` runs on the card; a harness regression (segment layout, MUX second pass, adder
 wiring, JSON schema) would otherwise only surface there.  This runs the
 complete harness in-process at TEST_PARAMS on CPU — every correctness
 segment plus the timed path — and checks the one-line JSON contract
@@ -21,8 +20,7 @@ def test_bench_harness_end_to_end(monkeypatch, capsys):
     monkeypatch.setenv("BENCH_BATCH", "64")
     monkeypatch.setenv("BENCH_ITERS", "1")
     monkeypatch.setenv("BENCH_GATES", "all")
-    # Sharded path too (8-virtual-device mesh on CPU; matmul engine —
-    # the real-chip run composes it with the fused Pallas kernel).
+    # Sharded path too (8-virtual-device mesh on CPU; matmul engine).
     monkeypatch.setenv("BENCH_SHARDED", "1")
 
     path = pathlib.Path(__file__).resolve().parents[1] / "bench.py"

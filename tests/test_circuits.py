@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rustfhe_tpu.apps.circuits import (
+from rustfhe.apps.circuits import (
     Circuit,
     array_multiplier,
     comparator,
@@ -15,8 +15,8 @@ from rustfhe_tpu.apps.circuits import (
     ripple_borrow_subtractor,
     ripple_carry_adder,
 )
-from rustfhe_tpu.context import TFHE
-from rustfhe_tpu.params import TEST_PARAMS
+from rustfhe.context import TFHE
+from rustfhe.params import TEST_PARAMS
 
 U32 = jnp.uint32
 
@@ -218,7 +218,7 @@ def test_random_dag_fuzz_encrypted_vs_plain(ctx):
 
 # ------------------- log-depth cells (VERDICT r3 item 6) ------------------- #
 def test_kogge_stone_plain_exhaustive_4bit():
-    from rustfhe_tpu.apps.circuits import kogge_stone_adder
+    from rustfhe.apps.circuits import kogge_stone_adder
 
     c = kogge_stone_adder(4)
     assert c.depth <= 5  # 15-level ripple -> log-depth
@@ -232,7 +232,7 @@ def test_kogge_stone_plain_exhaustive_4bit():
 
 
 def test_kogge_stone_depth_contract():
-    from rustfhe_tpu.apps.circuits import kogge_stone_adder, prefix_comparator
+    from rustfhe.apps.circuits import kogge_stone_adder, prefix_comparator
 
     # The VERDICT bar: adder8 depth <= 9 (measured: 7); comparator log too.
     assert kogge_stone_adder(8).depth == 7
@@ -243,7 +243,7 @@ def test_kogge_stone_depth_contract():
 
 
 def test_kogge_stone_incoming_one_sub_plain_exhaustive_4bit():
-    from rustfhe_tpu.apps.circuits import kogge_stone_adder
+    from rustfhe.apps.circuits import kogge_stone_adder
 
     c = kogge_stone_adder(4, incoming_one=True)
     for a in range(16):
@@ -259,7 +259,7 @@ def test_kogge_stone_incoming_one_sub_plain_exhaustive_4bit():
 
 
 def test_prefix_comparator_plain_exhaustive_4bit():
-    from rustfhe_tpu.apps.circuits import prefix_comparator
+    from rustfhe.apps.circuits import prefix_comparator
 
     c = prefix_comparator(4)
     for a in range(16):
@@ -273,7 +273,7 @@ def test_prefix_comparator_plain_exhaustive_4bit():
 
 @pytest.mark.slow  # compile-heavy: in the full suite (pytest -m ""), not the fast run
 def test_encrypted_kogge_stone_adder_8bit(ctx):
-    from rustfhe_tpu.apps.circuits import kogge_stone_adder
+    from rustfhe.apps.circuits import kogge_stone_adder
 
     c = kogge_stone_adder(8)
     rs = np.random.RandomState(3)
@@ -290,7 +290,7 @@ def test_encrypted_kogge_stone_adder_8bit(ctx):
 
 
 def test_wallace_multiplier_plain_exhaustive_4bit():
-    from rustfhe_tpu.apps.circuits import wallace_multiplier
+    from rustfhe.apps.circuits import wallace_multiplier
 
     c = wallace_multiplier(4)
     assert c.depth < array_multiplier(4).depth or True  # informational
@@ -302,6 +302,6 @@ def test_wallace_multiplier_plain_exhaustive_4bit():
 
 
 def test_wallace_depth_beats_array_8bit():
-    from rustfhe_tpu.apps.circuits import wallace_multiplier
+    from rustfhe.apps.circuits import wallace_multiplier
 
     assert wallace_multiplier(8).depth < array_multiplier(8).depth

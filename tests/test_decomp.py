@@ -9,8 +9,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rustfhe_tpu import decomp
-from rustfhe_tpu.params import DEFAULT_PARAMS, TFHEParams
+from rustfhe import decomp
+from rustfhe.params import DEFAULT_PARAMS, TFHEParams
 
 U32 = jnp.uint32
 

@@ -10,13 +10,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rustfhe_tpu.engine import (
+from rustfhe.engine import (
     engine_probe_result,
     get_engine,
     probe_vectors,
     select_fast_engine,
 )
-from rustfhe_tpu.params import DEFAULT_PARAMS, PBS_PARAMS, TEST_PARAMS
+from rustfhe.params import DEFAULT_PARAMS, PBS_PARAMS, TEST_PARAMS
 
 
 @pytest.fixture
@@ -76,7 +76,7 @@ def test_raises_without_x64():
 
 def test_full_gate_on_fft64(x64):
     """End-to-end NAND at TEST_PARAMS through the fft64 engine."""
-    from rustfhe_tpu import gates, keys, tlwe
+    from rustfhe import gates, keys, tlwe
 
     p = TEST_PARAMS
     kg, ke = jax.random.split(jax.random.PRNGKey(5))

@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rustfhe_tpu import gates, keys, tlwe
-from rustfhe_tpu.params import TEST_PARAMS
+from rustfhe import gates, keys, tlwe
+from rustfhe.params import TEST_PARAMS
 
 U32 = jnp.uint32
 
@@ -77,7 +77,7 @@ def test_gate_on_trivial_inputs(setup):
     # The nander REPL encrypts constants as trivial ciphertexts
     # (tlwe.rs:80-87); gates must bootstrap them correctly too.
     p, sk, ck, _ = setup
-    from rustfhe_tpu import torus
+    from rustfhe import torus
 
     cx = tlwe.trivial(torus.binary_to_torus(jnp.array([0, 1, 0, 1], U32)), p.n)
     cy = tlwe.trivial(torus.binary_to_torus(jnp.array([0, 0, 1, 1], U32)), p.n)

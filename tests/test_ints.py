@@ -6,9 +6,9 @@ import jax
 import numpy as np
 import pytest
 
-from rustfhe_tpu.context import TFHE
-from rustfhe_tpu.ints import FheInt, FheUint
-from rustfhe_tpu.params import TEST_PARAMS
+from rustfhe.context import TFHE
+from rustfhe.ints import FheInt, FheUint
+from rustfhe.params import TEST_PARAMS
 
 W = 4
 MASK = (1 << W) - 1
@@ -150,8 +150,8 @@ def test_fheuint_mesh_sharded():
     """FheUint composes with the sharded evaluation path unchanged: a
     GateSession is a drop-in ctx, so every integer op runs its circuit
     levels data-sharded over the 8-virtual-device mesh."""
-    from rustfhe_tpu.ints import FheUint
-    from rustfhe_tpu.parallel.multihost import GateSession
+    from rustfhe.ints import FheUint
+    from rustfhe.parallel.multihost import GateSession
 
     sess = GateSession(jax.random.PRNGKey(5), TEST_PARAMS, "matmul", model=2)
     rs = np.random.RandomState(11)

@@ -27,7 +27,7 @@ def test_grouped2_nand_truth_table():
 
 def test_grouped2_odd_n_leftover_step():
     # Odd n exercises the trailing standard CMux step after the groups.
-    from rustfhe_tpu.params import TFHEParams
+    from rustfhe.params import TFHEParams
 
     mod = _load_probe()
     p = TFHEParams(n=15, N=64, alpha_lv0=2.0**-20, alpha_lv1=2.0**-28)

@@ -7,8 +7,8 @@ import jax
 import numpy as np
 import pytest
 
-from rustfhe_tpu.apps import nander
-from rustfhe_tpu.apps.nander import (
+from rustfhe.apps import nander
+from rustfhe.apps.nander import (
     FheLogic,
     ParseError,
     PlainLogic,
@@ -90,8 +90,8 @@ def test_nand_only_defaults():
 
 
 def test_fhe_matches_plain():
-    from rustfhe_tpu.context import TFHE
-    from rustfhe_tpu.params import TEST_PARAMS
+    from rustfhe.context import TFHE
+    from rustfhe.params import TEST_PARAMS
 
     ctx = TFHE.new(jax.random.PRNGKey(21), TEST_PARAMS, "matmul")
     fhe = FheLogic(ctx)
@@ -107,7 +107,7 @@ def test_fhe_matches_plain():
 
 
 def test_python_dash_m_console_fused_path():
-    """Regression (round 5): ``python -m rustfhe_tpu.apps.nander`` runs the
+    """Regression (round 5): ``python -m rustfhe.apps.nander`` runs the
     module as __main__ — a SECOND copy of the AST classes — and the fused
     evaluator's pattern matching against the canonical import then raised
     "not an expression" on every gate expression.  The __main__ stub must
@@ -117,10 +117,10 @@ def test_python_dash_m_console_fused_path():
     import sys
 
     r = subprocess.run(
-        [sys.executable, "-m", "rustfhe_tpu.apps.nander"],
+        [sys.executable, "-m", "rustfhe.apps.nander"],
         input="0\n1; 0; 1\n",
         capture_output=True, text=True, timeout=300,
-        env={**__import__("os").environ, "RUSTFHE_FORCE_CPU": "1"},
+        env={**__import__("os").environ, "JAX_PLATFORMS": "cpu"},
     )
     assert "res: 0" in r.stdout, (r.stdout, r.stderr[-2000:])
     assert "res: 1 0 1" in r.stdout, (r.stdout, r.stderr[-2000:])

@@ -5,8 +5,8 @@ and the native levelizer vs the Python one."""
 import numpy as np
 import pytest
 
-from rustfhe_tpu import native, poly
-from rustfhe_tpu.apps.circuits import ripple_carry_adder
+from rustfhe import native, poly
+from rustfhe.apps.circuits import ripple_carry_adder
 
 
 def test_native_available():

@@ -3,8 +3,8 @@ parameter sets whose on-device behavior is known — DEFAULT decodes
 8192/8192 gates correctly (>=5 sigma), the FAST preset measured 12/8192
 failures (~3 sigma)."""
 
-from rustfhe_tpu.params import DEFAULT_PARAMS, FAST_PARAMS, N2048_PARAMS, TEST_PARAMS
-from rustfhe_tpu.utils.noise import check_params, noise_budget
+from rustfhe.params import DEFAULT_PARAMS, FAST_PARAMS, N2048_PARAMS, TEST_PARAMS
+from rustfhe.utils.noise import check_params, noise_budget
 
 
 def test_default_params_have_margin():
@@ -42,8 +42,8 @@ def test_calibrated_margin_pairs():
     # corrections: DEFAULT (anchor 3) divides by 1.6; PBS_PARAMS (anchor 4,
     # measured conservative) keeps the prediction as its bound; unmeasured
     # sets get the worst measured direction.
-    from rustfhe_tpu.params import PBS_PARAMS
-    from rustfhe_tpu.utils.noise import calibrated_margin
+    from rustfhe.params import PBS_PARAMS
+    from rustfhe.utils.noise import calibrated_margin
 
     cm_d = calibrated_margin(DEFAULT_PARAMS)
     assert cm_d.anchored
@@ -65,7 +65,7 @@ def test_default_borderline_pbs_many_gated():
     import jax.numpy as jnp
     import pytest
 
-    from rustfhe_tpu import pbs
+    from rustfhe import pbs
 
     ok, msg = pbs.check_pbs_many(DEFAULT_PARAMS, 4, 2)
     assert not ok and "4.2" in msg, msg

@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rustfhe_tpu.apps.circuits import (
+from rustfhe.apps.circuits import (
     Circuit,
     array_multiplier,
     comparator,
@@ -26,8 +26,8 @@ from rustfhe_tpu.apps.circuits import (
     ripple_carry_adder,
     wallace_multiplier,
 )
-from rustfhe_tpu.context import TFHE
-from rustfhe_tpu.params import TEST_PARAMS
+from rustfhe.context import TFHE
+from rustfhe.params import TEST_PARAMS
 
 BUILDERS = [
     ("kogge_stone_adder", lambda: kogge_stone_adder(8)),
@@ -120,9 +120,9 @@ def test_repl_cross_expression_sharing(ctx):
     """K pipelined expressions sharing a subexpression merge lanes: the
     shared (1&0) computes once across the session (leaf dedup by value +
     CSE), and the decrypted bits are right."""
-    from rustfhe_tpu.apps.nander import parse_logic_expr as parse
-    from rustfhe_tpu.apps.replprog import FusedEvaluator, exprs_to_circuit
-    from rustfhe_tpu.apps.circuits import optimize as opt
+    from rustfhe.apps.nander import parse_logic_expr as parse
+    from rustfhe.apps.replprog import FusedEvaluator, exprs_to_circuit
+    from rustfhe.apps.circuits import optimize as opt
 
     exprs = [parse(s) for s in ["1&0", "(1&0)|1", "!(1&0)", "1&1"]]
     circ, _leaves = exprs_to_circuit(exprs)
@@ -136,8 +136,8 @@ def test_repl_cross_expression_sharing(ctx):
 
 
 def test_repl_single_expr_still_exact(ctx):
-    from rustfhe_tpu.apps.nander import parse_logic_expr as parse
-    from rustfhe_tpu.apps.replprog import FusedEvaluator
+    from rustfhe.apps.nander import parse_logic_expr as parse
+    from rustfhe.apps.replprog import FusedEvaluator
 
     ev = FusedEvaluator(ctx, width=8, max_wires=32)
     for s, want in [
@@ -151,7 +151,7 @@ def test_repl_single_expr_still_exact(ctx):
 # ---------------- NOT folding (lower_folded) ---------------- #
 
 def _folded_levels(c):
-    from rustfhe_tpu.apps.circuits import lower_folded, optimize as opt
+    from rustfhe.apps.circuits import lower_folded, optimize as opt
 
     coeff, ia, ib, ow, nw, osrc, oneg = lower_folded(opt(c))
     lv = {w: 0 for w in range(c.n_inputs)}
@@ -176,7 +176,7 @@ def test_not_folding_removes_levels_and_lanes():
 
 
 def test_not_chain_emits_zero_gates():
-    from rustfhe_tpu.apps.circuits import lower_folded
+    from rustfhe.apps.circuits import lower_folded
 
     c = Circuit(n_inputs=1)
     w = 0
@@ -206,8 +206,8 @@ def test_encrypted_not_heavy_circuits(ctx):
 def test_repl_not_expressions(ctx):
     """Console NOTs are free: pure-NOT expressions never touch the device,
     and negated roots flip host-side."""
-    from rustfhe_tpu.apps.nander import parse_logic_expr as parse
-    from rustfhe_tpu.apps.replprog import FusedEvaluator
+    from rustfhe.apps.nander import parse_logic_expr as parse
+    from rustfhe.apps.replprog import FusedEvaluator
 
     ev = FusedEvaluator(ctx, width=8, max_wires=32)
     for s, want in [("!1", 0), ("!!1", 1), ("!!!0", 1),

@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rustfhe_tpu import gates, keys, tlwe
-from rustfhe_tpu.params import TFHEParams
+from rustfhe import gates, keys, tlwe
+from rustfhe.params import TFHEParams
 
 U32 = jnp.uint32
 
@@ -41,7 +41,7 @@ def test_nand_truth_table_across_params(p):
 
 def test_default_params_match_reference():
     # SURVEY.md §2.5 compatibility contract.
-    from rustfhe_tpu.params import DEFAULT_PARAMS as d
+    from rustfhe.params import DEFAULT_PARAMS as d
 
     assert d.n == 635
     assert d.N == 1024 and d.nbit == 10

@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rustfhe_tpu import keys, pbs, tlwe
-from rustfhe_tpu.context import TFHE
-from rustfhe_tpu.params import DEFAULT_PARAMS, TEST_PARAMS
+from rustfhe import keys, pbs, tlwe
+from rustfhe.context import TFHE
+from rustfhe.params import DEFAULT_PARAMS, TEST_PARAMS
 
 U32 = jnp.uint32
 
@@ -162,7 +162,7 @@ def test_check_pbs_space_defaults():
     assert not ok8, msg8
     assert not ok16, msg16
     # the calibrated space-8 margin must sit in the measured ~2.9-sigma band
-    from rustfhe_tpu.utils.noise import DEFAULT_SIGMA_INFLATION, noise_budget
+    from rustfhe.utils.noise import DEFAULT_SIGMA_INFLATION, noise_budget
 
     m8 = (1.0 / 32.0) / (noise_budget(DEFAULT_PARAMS).sigma_total
                          * DEFAULT_SIGMA_INFLATION)
@@ -255,7 +255,7 @@ def test_from_pbs_int_bridge(setup):
     """PBS-domain int -> FheUint bit planes in ONE bootstrap, composable
     with the integer API."""
     p, sk, ck, ke = setup
-    from rustfhe_tpu.context import TFHE
+    from rustfhe.context import TFHE
 
     ctx = TFHE(sk, ck, p, "matmul")
     space = 4

@@ -8,9 +8,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rustfhe_tpu import poly
-from rustfhe_tpu.engine import get_engine
-from rustfhe_tpu.params import TFHEParams
+from rustfhe import poly
+from rustfhe.engine import get_engine
+from rustfhe.params import TFHEParams
 
 U32 = jnp.uint32
 I32 = jnp.int32
@@ -131,199 +131,6 @@ def test_rotate_binary_matches_rotate():
     )
 
 
-def test_pallas_engine_interpret_exact():
-    # Fused Pallas step (interpret mode) vs the XLA matmul engine: exact.
-    from rustfhe_tpu.engine.pallas_step import PallasEngine
-    from rustfhe_tpu.engine import get_engine as _ge
-
-    params = TFHEParams(n=8, N=1024)
-    rs = np.random.RandomState(11)
-    rows = jnp.asarray(
-        rs.randint(0, 2**32, size=(6, 2, params.N), dtype=np.uint64).astype(np.uint32)
-    )
-    digits = jnp.asarray(
-        rs.randint(-params.half_bg, params.half_bg, size=(256, 6, params.N)).astype(np.int32)
-    )
-    m = _ge("matmul")
-    want = m.external_product_digits(m.prepare_trgsw(rows, params), digits, params)
-    pe = PallasEngine(interpret=True)
-    got = pe.external_product_digits(pe.prepare_trgsw(rows, params), digits, params)
-    assert np.array_equal(np.asarray(got), np.asarray(want))
-
-
-def test_pallas_fused_cmux_step_interpret_exact():
-    # The fully fused blind-rotate step (rotate+decompose+matmul+recombine+
-    # accumulate) vs the composed default path: exact.
-    from rustfhe_tpu import poly as rpoly, trgsw as rtrgsw
-    from rustfhe_tpu.engine import get_engine as _ge
-    from rustfhe_tpu.engine.pallas_step import PallasEngine
-
-    params = TFHEParams(n=8, N=1024)
-    rs = np.random.RandomState(17)
-    rows = jnp.asarray(
-        rs.randint(0, 2**32, size=(6, 2, params.N), dtype=np.uint64).astype(np.uint32)
-    )
-    acc = jnp.asarray(
-        rs.randint(0, 2**32, size=(128, 2, params.N), dtype=np.uint64).astype(np.uint32)
-    )
-    ai = jnp.asarray(rs.randint(0, 2 * params.N, size=(128,)).astype(np.int32))
-    m = _ge("matmul")
-    rot = rpoly.rotate_binary(acc, ai[:, None])
-    diff = (rot - acc).astype(U32)
-    want = (
-        acc
-        + m.external_product_digits(
-            m.prepare_trgsw(rows, params), rtrgsw.decompose_trlwe(diff, params), params
-        )
-    ).astype(U32)
-    pe = PallasEngine(interpret=True, merge_c=False)
-    got = pe.cmux_step(pe.prepare_trgsw(rows, params), acc, ai, params)
-    assert np.array_equal(np.asarray(got), np.asarray(want))
-    # c-merged variant (both output halves in one program): also exact.
-    pm = PallasEngine(interpret=True, merge_c=True)
-    got_m = pm.cmux_step(pm.prepare_trgsw(rows, params), acc, ai, params)
-    assert np.array_equal(np.asarray(got_m), np.asarray(want))
-
-
-def test_pallas_k_scan_layout_roundtrip():
-    from rustfhe_tpu.engine.pallas_k import PallasKaratsubaEngine
-
-    params = TFHEParams(n=8, N=1024)
-    rs = np.random.RandomState(3)
-    acc = jnp.asarray(
-        rs.randint(0, 2**32, size=(5, 2, params.N), dtype=np.uint64).astype(np.uint32)
-    )
-    ke = PallasKaratsubaEngine(interpret=True)
-    flat = ke.scan_enter(acc, params)
-    assert flat.shape == (5, 2 * params.N)
-    back = ke.scan_exit(flat, params)
-    assert np.array_equal(np.asarray(back), np.asarray(acc))
-
-
-def test_pallas_k_extprod_interpret_exact():
-    # Karatsuba even/odd fused external product (interpret) vs matmul: exact.
-    from rustfhe_tpu.engine import get_engine as _ge
-    from rustfhe_tpu.engine.pallas_k import PallasKaratsubaEngine
-
-    params = TFHEParams(n=8, N=1024)
-    rs = np.random.RandomState(23)
-    rows = jnp.asarray(
-        rs.randint(0, 2**32, size=(6, 2, params.N), dtype=np.uint64).astype(np.uint32)
-    )
-    digits = jnp.asarray(
-        rs.randint(-params.half_bg, params.half_bg, size=(256, 6, params.N)).astype(np.int32)
-    )
-    m = _ge("matmul")
-    want = m.external_product_digits(m.prepare_trgsw(rows, params), digits, params)
-    ke = PallasKaratsubaEngine(interpret=True)
-    got = ke.external_product_digits(ke.prepare_trgsw(rows, params), digits, params)
-    assert np.array_equal(np.asarray(got), np.asarray(want))
-
-
-def test_pallas_k_cmux_step_interpret_exact():
-    # Fused Karatsuba CMux step in e/o layout vs the composed default path.
-    from rustfhe_tpu import poly as rpoly, trgsw as rtrgsw
-    from rustfhe_tpu.engine import get_engine as _ge
-    from rustfhe_tpu.engine.pallas_k import PallasKaratsubaEngine
-
-    params = TFHEParams(n=8, N=1024)
-    rs = np.random.RandomState(29)
-    rows = jnp.asarray(
-        rs.randint(0, 2**32, size=(6, 2, params.N), dtype=np.uint64).astype(np.uint32)
-    )
-    acc = jnp.asarray(
-        rs.randint(0, 2**32, size=(128, 2, params.N), dtype=np.uint64).astype(np.uint32)
-    )
-    ai = jnp.asarray(rs.randint(0, 2 * params.N, size=(128,)).astype(np.int32))
-    m = _ge("matmul")
-    rot = rpoly.rotate_binary(acc, ai[:, None])
-    diff = (rot - acc).astype(U32)
-    want = (
-        acc
-        + m.external_product_digits(
-            m.prepare_trgsw(rows, params), rtrgsw.decompose_trlwe(diff, params), params
-        )
-    ).astype(U32)
-    ke = PallasKaratsubaEngine(interpret=True)
-    flat = ke.scan_enter(acc, params)
-    got_flat = ke.cmux_step(ke.prepare_trgsw(rows, params), flat, ai, params)
-    got = ke.scan_exit(got_flat, params)
-    assert np.array_equal(np.asarray(got), np.asarray(want))
-
-
-def test_cloud_key_panels_noop_for_engines_without_panels():
-    # Engines without prepare_panels (the XLA matmul path) return the key
-    # unchanged — latency_mode is safe to request on any backend.
-    import jax as _jax
-    from rustfhe_tpu import keys as rkeys
-    from rustfhe_tpu.keys import cloud_key_panels
-
-    params = TFHEParams(n=4, N=16)
-    sk, ck = rkeys.gen_keys(_jax.random.PRNGKey(0), params, engine_name="matmul")
-    ck2 = cloud_key_panels(ck, params, "matmul")
-    assert ck2.bk is ck.bk and ck2.ksk is ck.ksk
-
-
-def test_pallas_k_latency_mode_panels_bit_exact():
-    # Latency mode: cmux_step fed precomputed panel tables (prepare_panels)
-    # must match the per-step-build path bit-for-bit, end to end through a
-    # full gate (the form is detected by the trailing panel width).
-    from rustfhe_tpu import gates, keys as rkeys, tlwe as rtlwe
-    from rustfhe_tpu.engine.pallas_k import PallasKaratsubaEngine
-    from rustfhe_tpu.keys import cloud_key_panels
-
-    params = TFHEParams(n=12, N=256, alpha_lv0=2.0**-20, alpha_lv1=2.0**-28)
-    eng = PallasKaratsubaEngine(interpret=True, tb=8, levels=1)
-    key = jax.random.PRNGKey(21)
-    kg, ke = jax.random.split(key)
-    sk, ck = rkeys.gen_keys(kg, params, engine_name=eng)
-    ck_lat = cloud_key_panels(ck, params, eng)
-    assert ck_lat.bk.shape[-1] == 2 * (params.N >> 1) - eng.tm
-
-    bits = jnp.zeros((8,), U32).at[1::2].set(1)
-    cx = rtlwe.encrypt_binary(jax.random.fold_in(ke, 0), sk.lv0, bits, params)
-    cy = rtlwe.encrypt_binary(jax.random.fold_in(ke, 1), sk.lv0, 1 - bits, params)
-    ref = gates.hom_nand(ck, cx, cy, params=params, engine_name=eng)
-    got = gates.hom_nand(ck_lat, cx, cy, params=params, engine_name=eng)
-    assert np.array_equal(np.asarray(got), np.asarray(ref))
-
-
-def test_pallas_k2_interpret_exact():
-    # Two-level Karatsuba (Z = X^4, nine quarter-size convs): extprod and
-    # fused step vs the matmul path, exact (interpret mode).
-    from rustfhe_tpu import poly as rpoly, trgsw as rtrgsw
-    from rustfhe_tpu.engine import get_engine as _ge
-    from rustfhe_tpu.engine.pallas_k import PallasKaratsubaEngine
-
-    params = TFHEParams(n=8, N=1024)
-    rs = np.random.RandomState(31)
-    rows = jnp.asarray(
-        rs.randint(0, 2**32, size=(6, 2, params.N), dtype=np.uint64).astype(np.uint32)
-    )
-    digits = jnp.asarray(
-        rs.randint(-params.half_bg, params.half_bg, size=(128, 6, params.N)).astype(np.int32)
-    )
-    acc = jnp.asarray(
-        rs.randint(0, 2**32, size=(128, 2, params.N), dtype=np.uint64).astype(np.uint32)
-    )
-    ai = jnp.asarray(rs.randint(0, 2 * params.N, size=(128,)).astype(np.int32))
-    m = _ge("matmul")
-    prep_m = m.prepare_trgsw(rows, params)
-    want_ep = m.external_product_digits(prep_m, digits, params)
-    rot = rpoly.rotate_binary(acc, ai[:, None])
-    diff = (rot - acc).astype(U32)
-    want_step = (
-        acc + m.external_product_digits(prep_m, rtrgsw.decompose_trlwe(diff, params), params)
-    ).astype(U32)
-
-    k2 = PallasKaratsubaEngine(interpret=True, levels=2)
-    prep = k2.prepare_trgsw(rows, params)
-    got_ep = k2.external_product_digits(prep, digits, params)
-    assert np.array_equal(np.asarray(got_ep), np.asarray(want_ep))
-    got_step = k2.scan_exit(k2.cmux_step(prep, k2.scan_enter(acc, params), ai, params), params)
-    assert np.array_equal(np.asarray(got_step), np.asarray(want_step))
-
-
 class _EdgeBrokenEngine:
     """Deliberately broken engine: wrong ONLY where a most-negative digit
     (-half_bg) multiplies a row byte equal to 0x80 — the limb sign-overflow
@@ -334,7 +141,7 @@ class _EdgeBrokenEngine:
     name = "edge_broken"
 
     def __init__(self):
-        from rustfhe_tpu.engine import get_engine
+        from rustfhe.engine import get_engine
 
         self._oracle = get_engine("oracle")
 
@@ -354,7 +161,7 @@ class _EdgeBrokenEngine:
 
 
 def test_probe_vectors_catch_edge_broken_engine():
-    from rustfhe_tpu.engine import engine_exact_on_probe, get_engine, probe_vectors
+    from rustfhe.engine import engine_exact_on_probe, get_engine, probe_vectors
 
     params = TFHEParams(n=16, N=64)
     rows, digits = probe_vectors(params)
@@ -372,10 +179,9 @@ def test_probe_vectors_catch_edge_broken_engine():
 
 def test_probe_result_distinguishes_failure_causes():
     """engine_probe_result reports WHY a probe failed: an engine that ran
-    but was inexact reads 'INEXACT'; one that raised (compile failure)
-    carries the exception text — the diagnostic RUSTFHE_ENGINE overrides
-    need when the remote-compile path degrades."""
-    from rustfhe_tpu.engine import engine_probe_result, get_engine, probe_vectors
+    but was inexact reads 'INEXACT'; one that cannot run is not judged at
+    all — its error propagates (selection never chooses by catching it)."""
+    from rustfhe.engine import engine_probe_result, get_engine, probe_vectors
 
     params = TFHEParams(n=16, N=64)
     rows, digits = probe_vectors(params)
@@ -393,90 +199,10 @@ def test_probe_result_distinguishes_failure_causes():
         name = "crashing"
 
         def prepare_trgsw(self, rows, params):
-            raise RuntimeError("Mosaic lowering failed: simulated")
+            raise RuntimeError("lowering failed: simulated")
 
         def external_product_digits(self, prepared, digits, params):
             raise AssertionError("unreachable")
 
-    ok, why = engine_probe_result(_Crashing(), params, rows_j, digits_j, want)
-    assert not ok
-    assert "failed to execute" in why and "simulated" in why
-    assert "INEXACT" not in why
-
-
-def test_pallas_k_hybrid_mode_bit_exact():
-    # Hybrid mode (keys.cloud_key_hybrid): blind rotation as 2-step fused
-    # pairs (odd-step panels prebuilt, even built per step) + a standard
-    # tail step for odd n — must match the standard scan bit-for-bit
-    # through a full gate.  n=13 exercises 6 pairs AND the leftover step.
-    from rustfhe_tpu import gates, keys as rkeys, tlwe as rtlwe
-    from rustfhe_tpu.engine.pallas_k import PallasKaratsubaEngine
-    from rustfhe_tpu.keys import HybridBK, cloud_key_hybrid
-
-    params = TFHEParams(n=13, N=256, alpha_lv0=2.0**-20, alpha_lv1=2.0**-28)
-    eng = PallasKaratsubaEngine(interpret=True, tb=8, levels=1)
-    key = jax.random.PRNGKey(23)
-    kg, ke = jax.random.split(key)
-    sk, ck = rkeys.gen_keys(kg, params, engine_name=eng)
-    ck_h = cloud_key_hybrid(ck, params, eng)
-    assert isinstance(ck_h.bk, HybridBK)
-    assert ck_h.bk.prep_even.shape[0] == 6 and ck_h.bk.prep_tail.shape[0] == 1
-    assert cloud_key_hybrid(ck_h, params, eng).bk is ck_h.bk  # idempotent
-
-    bits = jnp.zeros((8,), U32).at[1::2].set(1)
-    cx = rtlwe.encrypt_binary(jax.random.fold_in(ke, 0), sk.lv0, bits, params)
-    cy = rtlwe.encrypt_binary(jax.random.fold_in(ke, 1), sk.lv0, 1 - bits, params)
-    ref = gates.hom_nand(ck, cx, cy, params=params, engine_name=eng)
-    got = gates.hom_nand(ck_h, cx, cy, params=params, engine_name=eng)
-    assert np.array_equal(np.asarray(got), np.asarray(ref))
-
-    # full_panels variant (latency configuration: even AND tail panels
-    # prebuilt too, zero in-step builds) — still bit-exact.
-    ck_f = cloud_key_hybrid(ck, params, eng, full_panels=True)
-    assert isinstance(ck_f.bk, HybridBK)
-    assert ck_f.bk.prep_even.shape != ck_h.bk.prep_even.shape  # panel form
-    got_f = gates.hom_nand(ck_f, cx, cy, params=params, engine_name=eng)
-    assert np.array_equal(np.asarray(got_f), np.asarray(ref))
-
-
-def test_rotate_all_steps_latency_kernel_bit_exact():
-    """Single-launch latency rotation (fused_rotate_all_k: all n steps in
-    one kernel, panel blocks pipelined by the grid) must match the
-    per-step scan bit-for-bit through a full gate — single-tile AND
-    multi-tile (batch-tile outer grid dim) forms."""
-    from rustfhe_tpu import gates, keys as rkeys, tlwe as rtlwe
-    from rustfhe_tpu.engine.pallas_k import PallasKaratsubaEngine
-
-    params = TFHEParams(n=13, N=256, alpha_lv0=2.0**-20, alpha_lv1=2.0**-28)
-    eng = PallasKaratsubaEngine(interpret=True, tb=8, levels=1)
-    kg, ke = jax.random.split(jax.random.PRNGKey(29))
-    sk, ck = rkeys.gen_keys(kg, params, engine_name=eng)
-    ck_lat = rkeys.cloud_key_panels(ck, params, eng)
-    assert ck_lat.bk.ndim == 4  # panel form with the step axis leading
-
-    bits = jnp.zeros((4,), U32).at[1::2].set(1)
-    cx = rtlwe.encrypt_binary(jax.random.fold_in(ke, 0), sk.lv0, bits, params)
-    cy = rtlwe.encrypt_binary(jax.random.fold_in(ke, 1), sk.lv0, 1 - bits,
-                              params)
-    ref = gates.hom_nand(ck, cx, cy, params=params, engine_name=eng)
-    got = gates.hom_nand(ck_lat, cx, cy, params=params, engine_name=eng)
-    assert np.array_equal(np.asarray(got), np.asarray(ref))
-
-    big = jnp.zeros((16,), U32).at[1::2].set(1)  # 16 = 2 tiles of tb=8
-    cx2 = rtlwe.encrypt_binary(jax.random.fold_in(ke, 2), sk.lv0, big, params)
-    cy2 = rtlwe.encrypt_binary(jax.random.fold_in(ke, 3), sk.lv0, 1 - big,
-                               params)
-    ref2 = gates.hom_nand(ck, cx2, cy2, params=params, engine_name=eng)
-    got2 = gates.hom_nand(ck_lat, cx2, cy2, params=params, engine_name=eng)
-    assert np.array_equal(np.asarray(got2), np.asarray(ref2))
-
-
-def test_cloud_key_hybrid_noop_for_engines_without_pair_step():
-    import jax as _jax
-    from rustfhe_tpu import keys as rkeys
-    from rustfhe_tpu.keys import cloud_key_hybrid
-
-    params = TFHEParams(n=4, N=16)
-    sk, ck = rkeys.gen_keys(_jax.random.PRNGKey(0), params, engine_name="matmul")
-    ck2 = cloud_key_hybrid(ck, params, "matmul")
-    assert ck2.bk is ck.bk and ck2.ksk is ck.ksk
+    with pytest.raises(RuntimeError, match="simulated"):
+        engine_probe_result(_Crashing(), params, rows_j, digits_j, want)

@@ -2,7 +2,7 @@
 
 The reference tests identity key switching at its real dimensions
 (1024 -> 635) and at a second pair (256 -> 60)
-(``hom_nand/src/tlwe.rs:346-396``); the TPU bench exercises production
+(``hom_nand/src/tlwe.rs:346-396``); the on-card bench exercises production
 parameters only for NAND on device.  These tests keep the production
 shapes honest in the CPU suite: key switching at both reference dimension
 pairs, and one full production-parameter NAND truth table (slow, ~45 s —
@@ -14,9 +14,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rustfhe_tpu import bootstrap, gates, keys, tlwe
-from rustfhe_tpu.engine import get_engine
-from rustfhe_tpu.params import DEFAULT_PARAMS, TFHEParams
+from rustfhe import bootstrap, gates, keys, tlwe
+from rustfhe.engine import get_engine
+from rustfhe.params import DEFAULT_PARAMS, TFHEParams
 
 U32 = jnp.uint32
 

@@ -7,9 +7,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rustfhe_tpu import tlwe
-from rustfhe_tpu.context import TFHE
-from rustfhe_tpu.params import TEST_PARAMS
+from rustfhe import tlwe
+from rustfhe.context import TFHE
+from rustfhe.params import TEST_PARAMS
 
 
 @pytest.fixture(scope="module")
@@ -58,7 +58,7 @@ def test_cloud_only_cannot_make_public_key(ctx):
 def test_fheuint_public_encryption(ctx):
     """Keyless typed-integer encryption: a cloud-only party encrypts
     integers under the public key; the key holder decrypts them."""
-    from rustfhe_tpu.ints import FheUint
+    from rustfhe.ints import FheUint
 
     pk = ctx.make_public_key()
     vals = np.array([9, 200, 0], np.uint64)

@@ -7,10 +7,10 @@ import jax
 import numpy as np
 import pytest
 
-from rustfhe_tpu import radix
-from rustfhe_tpu.context import TFHE
-from rustfhe_tpu.params import DEFAULT_PARAMS, PBS_PARAMS, PBS_TEST_PARAMS
-from rustfhe_tpu.radix import RadixUint
+from rustfhe import radix
+from rustfhe.context import TFHE
+from rustfhe.params import DEFAULT_PARAMS, PBS_PARAMS, PBS_TEST_PARAMS
+from rustfhe.radix import RadixUint
 
 ND = 3  # digits -> 6-bit integers
 MASK = (1 << (2 * ND)) - 1
@@ -91,7 +91,7 @@ def test_compare(ctx):
 
 
 def test_bit_bridges(ctx):
-    from rustfhe_tpu.ints import FheUint
+    from rustfhe.ints import FheUint
 
     a = RadixUint.encrypt(ctx, A, ND)
     bits = a.to_bits()
@@ -142,7 +142,7 @@ _wrap = lambda v: ((v + 32) & 63) - 32
 
 
 def test_signed_radix(ctx):
-    from rustfhe_tpu.radix import RadixInt
+    from rustfhe.radix import RadixInt
 
     a = RadixInt.encrypt(ctx, AS, ND)
     b = RadixInt.encrypt(ctx, BS, ND)
@@ -160,7 +160,7 @@ def test_signed_radix(ctx):
 
 
 def test_signed_radix_guards(ctx):
-    from rustfhe_tpu.radix import RadixInt
+    from rustfhe.radix import RadixInt
 
     a = RadixInt.encrypt(ctx, AS[:1], ND)
     u = RadixUint.encrypt(ctx, np.array([1], np.uint64), ND)
@@ -181,7 +181,7 @@ def test_adaptive_from_pbs_int(ctx):
     # a space-8 integer without an unsafe override.
     import jax.numpy as jnp
 
-    from rustfhe_tpu import pbs
+    from rustfhe import pbs
 
     assert not pbs.check_pbs_many(PBS_TEST_PARAMS, 8, 2)[0]
     assert pbs.check_pbs_space(PBS_TEST_PARAMS, 8)[0]
@@ -210,7 +210,7 @@ def test_bridge_backed_divmod_bitwise(ctx):
 
 
 def test_signed_radix_divmod(ctx):
-    from rustfhe_tpu.radix import RadixInt
+    from rustfhe.radix import RadixInt
 
     av = np.array([7, -7, 7, -7, -31], np.int64)
     bv = np.array([2, 2, -2, -2, 3], np.int64)
@@ -243,7 +243,7 @@ def test_shift_right(ctx):
 
 
 def test_shift_operators_and_signed_pattern(ctx):
-    from rustfhe_tpu.radix import RadixInt
+    from rustfhe.radix import RadixInt
 
     x = RadixUint.encrypt(ctx, A, ND)
     np.testing.assert_array_equal((x << 3).decrypt(), (A << np.uint64(3)) & MASK)
@@ -268,7 +268,7 @@ def test_add_overflows(ctx):
 
 
 def test_signed_add_with_overflow(ctx):
-    from rustfhe_tpu.radix import RadixInt
+    from rustfhe.radix import RadixInt
 
     lo, hi = -(1 << (2 * ND - 1)), 1 << (2 * ND - 1)
     av = np.array([31, -32, 20, -20, 1, -1], np.int64)
@@ -301,7 +301,7 @@ def test_scalar_mul_full_width(ctx):
 
 @pytest.mark.slow
 def test_signed_full_width_mul(ctx):
-    from rustfhe_tpu.radix import RadixInt
+    from rustfhe.radix import RadixInt
 
     av = np.array([-3, 5, -32, 31], np.int64)
     bv = np.array([7, -6, 2, -31], np.int64)

@@ -6,11 +6,11 @@ import jax
 import numpy as np
 import pytest
 
-from rustfhe_tpu.apps import nander
-from rustfhe_tpu.apps.replprog import FusedEvaluator, expr_to_circuit
-from rustfhe_tpu.apps.circuits import evaluate_plain
-from rustfhe_tpu.context import TFHE
-from rustfhe_tpu.params import TEST_PARAMS
+from rustfhe.apps import nander
+from rustfhe.apps.replprog import FusedEvaluator, expr_to_circuit
+from rustfhe.apps.circuits import evaluate_plain
+from rustfhe.context import TFHE
+from rustfhe.params import TEST_PARAMS
 
 EXPRS = [
     "1", "0", "!1", "!!0",
@@ -65,8 +65,8 @@ def test_console_uses_fused_path(ctx):
     import io
 
     out = io.StringIO()
-    nander.nander_console(params=TEST_PARAMS, engine_name="matmul",
-                          stdin=io.StringIO("(1 & 0) ^ !0\n1 $ 1\n"),
+    nander.nander_console(params=TEST_PARAMS, engine_name="matmul", width=8,
+                          max_wires=64, stdin=io.StringIO("(1 & 0) ^ !0\n1 $ 1\n"),
                           stdout=out)
     text = out.getvalue()
     assert "res: 1" in text and "res: 0" in text
@@ -103,11 +103,11 @@ def test_console_pipelined_line(ctx):
     """A ';'-separated console line answers K results with one time line."""
     import io
 
-    from rustfhe_tpu.apps.nander import nander_console
+    from rustfhe.apps.nander import nander_console
 
     out = io.StringIO()
-    nander_console(params=TEST_PARAMS, engine_name="matmul",
-                   stdin=io.StringIO("1 $ 0; 1 & 1; (1 & 0) ^ !0\n"),
+    nander_console(params=TEST_PARAMS, engine_name="matmul", width=8,
+                   max_wires=64, stdin=io.StringIO("1 $ 0; 1 & 1; (1 & 0) ^ !0\n"),
                    stdout=out)
     text = out.getvalue()
     assert "res: 1 1 1" in text, text
@@ -119,14 +119,14 @@ def test_console_pipelined_chunking(ctx):
     evaluates in greedy fused chunks (round-5 console chunking)."""
     import io
 
-    from rustfhe_tpu.apps.nander import nander_console
+    from rustfhe.apps.nander import nander_console
 
-    # 10 single-gate expressions > the CPU console's width of 8.
+    # 10 single-gate expressions > the lane width of 8 passed here.
     exprs = ["1 $ 0", "1 & 1", "0 | 0", "1 ^ 0", "0 $ 0",
              "1 & 0", "1 | 0", "1 ^ 1", "!0", "!1"]
     want = "1 1 0 1 1 0 1 0 1 0"
     out = io.StringIO()
-    nander_console(params=TEST_PARAMS, engine_name="matmul",
+    nander_console(params=TEST_PARAMS, engine_name="matmul", width=8, max_wires=64,
                    stdin=io.StringIO("; ".join(exprs) + "\n"), stdout=out)
     text = out.getvalue()
     assert f"res: {want}" in text, text

@@ -14,10 +14,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from rustfhe_tpu import tlwe
-from rustfhe_tpu.context import TFHE
-from rustfhe_tpu.params import DEFAULT_PARAMS, TEST_PARAMS
-from rustfhe_tpu.utils.serialization import (
+from rustfhe import tlwe
+from rustfhe.context import TFHE
+from rustfhe.params import DEFAULT_PARAMS, TEST_PARAMS
+from rustfhe.utils.serialization import (
     load_seeded_ciphertexts,
     save_ciphertexts,
     save_seeded_ciphertexts,
@@ -27,7 +27,7 @@ from rustfhe_tpu.utils.serialization import (
 def test_seeded_matches_direct_bit_for_bit():
     """expand(encrypt_seeded(k)) == encrypt(k): the compressed form is the
     SAME ciphertext, not just an equivalent one."""
-    from rustfhe_tpu.keys import gen_secret_key
+    from rustfhe.keys import gen_secret_key
 
     k = jax.random.PRNGKey(7)
     sk = gen_secret_key(jax.random.fold_in(k, 0), TEST_PARAMS)
@@ -99,7 +99,7 @@ def test_seed_is_mask_subkey_not_full_key():
     split(key)[0], never the full PRNG key (whose noise subkey would let
     anyone recompute every Gaussian sample and solve for the secret key
     over GF(2))."""
-    from rustfhe_tpu.keys import gen_secret_key
+    from rustfhe.keys import gen_secret_key
 
     k = jax.random.PRNGKey(13)
     sk = gen_secret_key(jax.random.fold_in(k, 0), TEST_PARAMS)
@@ -114,7 +114,7 @@ def test_seed_is_mask_subkey_not_full_key():
 def test_public_key_rows_floor():
     """Too-few pk rows (enumerable subset-sum) must raise, like every
     other unsafe parameter choice in the framework."""
-    from rustfhe_tpu.keys import gen_secret_key
+    from rustfhe.keys import gen_secret_key
 
     sk = gen_secret_key(jax.random.PRNGKey(1), TEST_PARAMS)
     try:
@@ -128,7 +128,7 @@ def test_public_key_rows_floor():
 def test_fheuint_seeded_roundtrip():
     """Typed-integer seeded upload: encrypt_seeded -> public expand ->
     arithmetic -> decrypt."""
-    from rustfhe_tpu.ints import FheUint
+    from rustfhe.ints import FheUint
 
     ctx = TFHE.new(jax.random.PRNGKey(17), TEST_PARAMS, "matmul")
     ctx.circuit_fixed_width = None
@@ -142,7 +142,7 @@ def test_fheuint_seeded_roundtrip():
 def test_radix_seeded_roundtrip():
     """Radix-integer seeded upload: (seed, digit bodies) -> public expand
     -> decrypt."""
-    from rustfhe_tpu.radix import RadixUint
+    from rustfhe.radix import RadixUint
 
     ctx = TFHE.new(jax.random.PRNGKey(23), TEST_PARAMS, "matmul")
     vals = np.array([7, 255, 129], np.uint64)

@@ -1,14 +1,17 @@
 """Serialization round trips: secret key, raw cloud key, ciphertexts —
 decryption still works after reload (new capability vs the reference)."""
 
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from rustfhe_tpu import gates, keys, tlwe
-from rustfhe_tpu.engine import get_engine
-from rustfhe_tpu.params import TEST_PARAMS
-from rustfhe_tpu.utils import serialization as ser
+from rustfhe import gates, keys, tlwe
+from rustfhe.engine import get_engine
+from rustfhe.params import TEST_PARAMS
+from rustfhe.utils import serialization as ser
 
 U32 = jnp.uint32
 
@@ -62,11 +65,31 @@ def test_bad_magic_rejected(tmp_path):
         pass
 
 
+def _header(magic, params):
+    meta = {"magic": magic, "version": ser.VERSION,
+            "params": {f: getattr(params, f) for f in ser._PARAM_FIELDS}}
+    return np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+
+
+def test_suffixed_tag_of_earlier_releases_loads(tmp_path):
+    """Files written under the package's former name carry the tag with a
+    suffix; they load, while other tags are still rejected."""
+    cts = np.arange(3 * (TEST_PARAMS.n + 1), dtype=np.uint32).reshape(3, -1)
+    old = str(tmp_path / "old.npz")
+    np.savez(old, header=_header(ser.MAGIC + "_legacy", TEST_PARAMS), cts=cts)
+    got, p = ser.load_ciphertexts(old)
+    assert p == TEST_PARAMS and np.array_equal(np.asarray(got), cts)
+    other = str(tmp_path / "other.npz")
+    np.savez(other, header=_header(ser.MAGIC + "x", TEST_PARAMS), cts=cts)
+    with pytest.raises(ValueError, match="not a rustfhe file"):
+        ser.load_ciphertexts(other)
+
+
 def test_cached_keys_round_trip(tmp_path, rng):
     """cached_keys (VERDICT r4 #3): first call generates + writes, second
     call LOADS (no regeneration) and yields byte-identical key material;
     a different-params cache regenerates instead of being misused."""
-    from rustfhe_tpu.params import PBS_TEST_PARAMS
+    from rustfhe.params import PBS_TEST_PARAMS
 
     p = TEST_PARAMS
     prefix = str(tmp_path / "kc")

@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rustfhe_tpu import gates, keys, tlwe
-from rustfhe_tpu.parallel import make_mesh, shard_cloud_key, sharded_gate_fn
-from rustfhe_tpu.params import TEST_PARAMS
+from rustfhe import gates, keys, tlwe
+from rustfhe.parallel import make_mesh, shard_cloud_key, sharded_gate_fn
+from rustfhe.params import TEST_PARAMS
 
 U32 = jnp.uint32
 
@@ -88,7 +88,7 @@ def test_sharded_not_and_mux_bit_exact(setup):
 def test_tp_blind_rotate_bit_exact(setup):
     # BK gadget rows tensor-parallel over model: per-step psum inside the
     # scan must agree bit-for-bit with the replicated-BK path.
-    from rustfhe_tpu.parallel import shard_cloud_key_tp, tp_gate_fn
+    from rustfhe.parallel import shard_cloud_key_tp, tp_gate_fn
 
     p, sk, ck, cx, cy, ref, bx, by = setup
     mesh = make_mesh(data=4, model=2)
@@ -102,7 +102,7 @@ def test_multihost_gate_session(setup):
     # GateSession exercises the production multi-host code paths
     # (global mesh over all devices, make_array_from_process_local_data,
     # addressable-shard fetch) in its single-process degenerate form.
-    from rustfhe_tpu.parallel.multihost import GateSession, global_gate_batch_size
+    from rustfhe.parallel.multihost import GateSession, global_gate_batch_size
 
     p, sk, ck, cx, cy, ref, bx, by = setup
     kg, _ = jax.random.split(jax.random.PRNGKey(3))  # the fixture's keygen seed
@@ -125,12 +125,12 @@ def test_sharded_circuit_evaluator(setup):
     # The level-fused circuit evaluator runs mesh-sharded through
     # GateSession.bootstrap_raw: an adder batch sharded over `data`,
     # bit-exact vs plaintext evaluation.
-    from rustfhe_tpu.apps.circuits import (
+    from rustfhe.apps.circuits import (
         evaluate_encrypted,
         evaluate_plain,
         ripple_carry_adder,
     )
-    from rustfhe_tpu.parallel.multihost import GateSession
+    from rustfhe.parallel.multihost import GateSession
 
     p = setup[0]
     kg, _ = jax.random.split(jax.random.PRNGKey(3))
@@ -154,54 +154,13 @@ def test_sharded_circuit_evaluator(setup):
     assert np.array_equal(dec, evaluate_plain(circuit, bits))
 
 
-def test_sharded_pallas_fused_engine_bit_exact():
-    # The production composition the real-chip BENCH_SHARDED path runs:
-    # shard_map AROUND the fused Pallas CMux-step kernel (pl.pallas_call in
-    # interpret mode on the virtual mesh).  The sharded gate through the
-    # Karatsuba engine must match the unsharded result bit-for-bit,
-    # including the kernel's tb padding against the smaller per-shard batch.
-    from rustfhe_tpu.engine.pallas_k import PallasKaratsubaEngine
-    from rustfhe_tpu.params import TFHEParams
-
-    p = TFHEParams(n=12, N=256, alpha_lv0=2.0**-20, alpha_lv1=2.0**-28)
-    eng = PallasKaratsubaEngine(interpret=True, tb=8, levels=1)
-    key = jax.random.PRNGKey(11)
-    kg, ke = jax.random.split(key)
-    sk, ck = keys.gen_keys(kg, p, engine_name=eng)
-    B = 16
-    bx = jax.random.bernoulli(jax.random.fold_in(ke, 0), 0.5, (B,)).astype(U32)
-    by = jax.random.bernoulli(jax.random.fold_in(ke, 1), 0.5, (B,)).astype(U32)
-    cx = tlwe.encrypt_binary(jax.random.fold_in(ke, 2), sk.lv0, bx, p)
-    cy = tlwe.encrypt_binary(jax.random.fold_in(ke, 3), sk.lv0, by, p)
-    ref = gates.hom_nand(ck, cx, cy, params=p, engine_name=eng)
-
-    mesh = make_mesh(data=4, model=2)
-    # check_vma=False: jax's interpret-mode kernel evaluation trips the
-    # varying-mesh-axes checker on scalar constants; the compiled TPU path
-    # keeps the check on (bench.py BENCH_SHARDED).
-    fn = sharded_gate_fn(mesh, p, eng, check_vma=False)
-    ck_sh = shard_cloud_key(ck, mesh)
-    out = fn(ck_sh.bk, ck_sh.ksk, cx, cy)
-    assert np.array_equal(np.asarray(out), np.asarray(ref))
-    dec = np.asarray(tlwe.decrypt_binary(out, sk.lv0))
-    assert np.array_equal(dec, 1 - (np.asarray(bx) & np.asarray(by)))
-
-    # Latency-mode panels composed with shard_map: the panel-form BK rides
-    # the same replicated spec and the engine detects it inside the shard.
-    from rustfhe_tpu.keys import cloud_key_panels
-
-    ck_lat = shard_cloud_key(cloud_key_panels(ck, p, eng), mesh)
-    out_lat = fn(ck_lat.bk, ck_lat.ksk, cx, cy)
-    assert np.array_equal(np.asarray(out_lat), np.asarray(ref))
-
-
 def test_all_to_all_key_switch_bit_exact(setup):
     # One-hot built batch-sharded, transpose-exchanged (all_to_all) to KSK
     # row shards: must agree bit-for-bit with the psum-only variant.
     p, sk, ck, cx, cy, ref, bx, by = setup
     mesh = make_mesh(data=4, model=2)
     from jax.sharding import NamedSharding, PartitionSpec as P
-    from rustfhe_tpu.keys import CloudKey
+    from rustfhe.keys import CloudKey
 
     bk = jax.device_put(ck.bk, NamedSharding(mesh, P()))
     ksk = jax.device_put(ck.ksk, NamedSharding(mesh, P("data")))
@@ -216,8 +175,8 @@ def test_fetch_nonlead_batch_axis_and_unbatched_bootstrap(setup):
     # concatenate along the detected sharded axis instead of collapsing to
     # one shard's rows.  Also: a single unbatched (n+1,) pre must take the
     # replicated fallback (regression for the ndim<2 IndexError).
-    from rustfhe_tpu import gates
-    from rustfhe_tpu.parallel.multihost import GateSession
+    from rustfhe import gates
+    from rustfhe.parallel.multihost import GateSession
 
     p = setup[0]
     sk = setup[1]
@@ -249,12 +208,12 @@ def test_sharded_circuit_unbatched_small_levels(setup):
     # pre batches whose gate-lane axis (bucket sizes 1-2) is smaller than
     # the data axis; bootstrap_raw must fall back to replicated compute
     # instead of tripping shard_map's divisibility check.
-    from rustfhe_tpu.apps.circuits import (
+    from rustfhe.apps.circuits import (
         Circuit,
         evaluate_encrypted,
         evaluate_plain,
     )
-    from rustfhe_tpu.parallel.multihost import GateSession
+    from rustfhe.parallel.multihost import GateSession
 
     p = setup[0]
     kg, _ = jax.random.split(jax.random.PRNGKey(3))
@@ -272,8 +231,8 @@ def test_sharded_circuit_unbatched_small_levels(setup):
 def test_sharded_pbs_bit_exact(setup):
     """sharded_pbs_fn (data-sharded multi-output PBS, model-psum key
     switch) agrees BIT-FOR-BIT with the unsharded pbs_many."""
-    from rustfhe_tpu import pbs
-    from rustfhe_tpu.parallel import make_mesh, shard_cloud_key, sharded_pbs_fn
+    from rustfhe import pbs
+    from rustfhe.parallel import make_mesh, shard_cloud_key, sharded_pbs_fn
 
     p, sk, ck, *_ = setup
     space, t, B = 2, 2, 16

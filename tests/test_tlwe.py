@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rustfhe_tpu import bootstrap, keys, tlwe, torus
-from rustfhe_tpu.engine import get_engine
-from rustfhe_tpu.params import TEST_PARAMS, TFHEParams
+from rustfhe import bootstrap, keys, tlwe, torus
+from rustfhe.engine import get_engine
+from rustfhe.params import TEST_PARAMS, TFHEParams
 
 U32 = jnp.uint32
 
@@ -31,7 +31,7 @@ def test_encrypt_decrypt_round_trip(rng):
     # tlwe.rs:328-344: 100 round trips.
     p = TEST_PARAMS
     k1, k2, k3 = jax.random.split(rng, 3)
-    from rustfhe_tpu.utils.rng import binary_array
+    from rustfhe.utils.rng import binary_array
 
     s = binary_array(k1, (p.n,))
     bits = binary_array(k2, (100,))

@@ -4,7 +4,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from rustfhe_tpu import torus
+from rustfhe import torus
 
 U32 = jnp.uint32
 

@@ -8,8 +8,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rustfhe_tpu.engine import get_engine
-from rustfhe_tpu.params import TFHEParams
+from rustfhe.engine import get_engine
+from rustfhe.params import TFHEParams
 
 U32 = jnp.uint32
 
@@ -43,7 +43,7 @@ def test_nuss_engine_exact_vs_oracle(N):
 def test_nuss_engine_adversarial_probe_vectors():
     # The transform pipeline must survive the same adversarial probe set
     # the fast engines are gated on (limb/carry edges, digit extremes).
-    from rustfhe_tpu.engine import engine_exact_on_probe, probe_vectors
+    from rustfhe.engine import engine_exact_on_probe, probe_vectors
 
     params = TFHEParams(n=16, N=64)
     rows, digits = probe_vectors(params)
@@ -59,11 +59,11 @@ def test_nuss_engine_adversarial_probe_vectors():
 def test_degree_sharded_bit_exact(model):
     # N sharded over `model` devices: psum_scatter between transform stages
     # must reproduce the unsharded engine bit-for-bit.
-    from rustfhe_tpu.parallel.degree_sharded import (
+    from rustfhe.parallel.degree_sharded import (
         degree_sharded_external_product_fn,
         shard_transform_panels,
     )
-    from rustfhe_tpu.parallel.mesh import make_mesh
+    from rustfhe.parallel.mesh import make_mesh
 
     params = TFHEParams(n=16, N=64)
     rows, digits = _vectors(params, 4, 202)
@@ -87,11 +87,11 @@ def test_degree_sharded_bit_exact(model):
 def test_degree_sharded_rank_generality():
     # The shard_map is built per input rank: unbatched (2L, N) digits and a
     # two-lead-axis batch must both work and agree with the unsharded engine.
-    from rustfhe_tpu.parallel.degree_sharded import (
+    from rustfhe.parallel.degree_sharded import (
         degree_sharded_external_product_fn,
         shard_transform_panels,
     )
-    from rustfhe_tpu.parallel.mesh import make_mesh
+    from rustfhe.parallel.mesh import make_mesh
 
     params = TFHEParams(n=16, N=64)
     rows, digits = _vectors(params, 6, 303)  # digits (6, 2L, N)

@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rustfhe_tpu import tlwe, trlwe
-from rustfhe_tpu.engine import get_engine
-from rustfhe_tpu.params import TEST_PARAMS
-from rustfhe_tpu.utils.rng import binary_array
+from rustfhe import tlwe, trlwe
+from rustfhe.engine import get_engine
+from rustfhe.params import TEST_PARAMS
+from rustfhe.utils.rng import binary_array
 
 U32 = jnp.uint32
 

@@ -17,8 +17,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from rustfhe_tpu import gates, keys, tlwe
-from rustfhe_tpu.params import TEST_PARAMS
+from rustfhe import gates, keys, tlwe
+from rustfhe.params import TEST_PARAMS
 
 U32 = jnp.uint32
 
@@ -47,7 +47,7 @@ def test_frozen_secret_key_digest():
 def test_frozen_raw_key_digests():
     p = TEST_PARAMS
     sk = keys.gen_secret_key(jax.random.PRNGKey(1234), p)
-    from rustfhe_tpu.engine import get_engine
+    from rustfhe.engine import get_engine
 
     e = get_engine("matmul")
     bk = keys.gen_bootstrapping_key_raw(jax.random.PRNGKey(5), sk, p, e)
